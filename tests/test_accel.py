@@ -8,9 +8,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nn_bvh_tpu import accel
-from nn_bvh_tpu.accel import build as bvh_build
-from nn_bvh_tpu.geometry import scene as scene_mod, triangle
+from nn_bvh import accel
+from nn_bvh.accel import build as bvh_build
+from nn_bvh.geometry import scene as scene_mod, triangle
 
 
 def random_tris(n, seed=0, spread=4.0, size=0.4):
@@ -144,8 +144,8 @@ def test_kdtree_aggregate_matches_brute():
     (KdTreeAggregate, cpu/aggregates.h:76)."""
     import numpy as np
     import jax.numpy as jnp
-    from nn_bvh_tpu import accel
-    from nn_bvh_tpu.accel import kdtree, build as bm
+    from nn_bvh import accel
+    from nn_bvh.accel import kdtree, build as bm
 
     rs = np.random.RandomState(5)
     n = 300

@@ -9,9 +9,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from nn_bvh_tpu import accel
-from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-from nn_bvh_tpu.wavefront import camera as camera_mod, integrator, bdpt
+from nn_bvh import accel
+from nn_bvh.geometry import scene as scene_mod, transform as xf
+from nn_bvh.wavefront import camera as camera_mod, integrator, bdpt
 
 RES = 16
 TOL = 0.025

@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nn_bvh_tpu.scatter import bssrdf as bss
+from nn_bvh.scatter import bssrdf as bss
 
 
 @pytest.fixture(scope="module")
@@ -72,9 +72,9 @@ def test_sr_eval_scaling(table):
 
 @pytest.fixture(scope="module")
 def sss_scene():
-    from nn_bvh_tpu import accel
-    from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-    from nn_bvh_tpu.wavefront import camera as camera_mod
+    from nn_bvh import accel
+    from nn_bvh.geometry import scene as scene_mod, transform as xf
+    from nn_bvh.wavefront import camera as camera_mod
 
     b = scene_mod.SceneBuilder()
     sss = b.add_material("subsurface", sigma_a=(0.02, 0.04, 0.07),
@@ -100,10 +100,10 @@ def test_subsurface_scene_flags(sss_scene):
 
 
 def test_subsurface_sphere_renders(sss_scene):
-    from nn_bvh_tpu.wavefront import integrator
+    from nn_bvh.wavefront import integrator
 
     sc, dbvh, cam = sss_scene
-    cfg = integrator.IntegratorConfig(max_depth=3, mis=True, use_pallas=False)
+    cfg = integrator.IntegratorConfig(max_depth=3, mis=True, traversal="xla")
     img = np.asarray(integrator.render(sc, dbvh, cam, spp=4,
                                        sampler="independent", cfg=cfg))
     assert np.isfinite(img).all(), "subsurface render produced NaN/inf"

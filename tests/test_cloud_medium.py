@@ -9,9 +9,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from nn_bvh_tpu.utils import noise
-from nn_bvh_tpu.geometry import pbrt_parser
-from nn_bvh_tpu.wavefront import integrator
+from nn_bvh.utils import noise
+from nn_bvh.geometry import pbrt_parser
+from nn_bvh.wavefront import integrator
 
 pytestmark = pytest.mark.slow
 
@@ -48,7 +48,8 @@ def _render(med: str) -> float:
     assert sc.n_media == 1
     img = integrator.render(
         sc, dbvh, cam, spp=4,
-        cfg=integrator.IntegratorConfig(max_depth=6, kind="volpath"))
+        cfg=integrator.IntegratorConfig(max_depth=6, kind="volpath",
+                                        compact=False))
     return float(jnp.mean(img))
 
 

@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from nn_bvh_tpu import accel
-from nn_bvh_tpu.core import vecmath as vm
-from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-from nn_bvh_tpu.scatter import bxdf
-from nn_bvh_tpu.wavefront import camera as camera_mod, integrator
+from nn_bvh import accel
+from nn_bvh.core import vecmath as vm
+from nn_bvh.geometry import scene as scene_mod, transform as xf
+from nn_bvh.scatter import bxdf
+from nn_bvh.wavefront import camera as camera_mod, integrator
 
 
 def _ctx(kind, n, refl=(0.8, 0.8, 0.8), roughness=0.3, coat_roughness=0.1,
@@ -73,7 +73,7 @@ def test_coated_diffuse_furnace_bounded():
     cam = camera_mod.make_perspective(
         xf.look_at((0, 0, 0), (0, 0, 1), (0, 1, 0)), fov=20.0, width=16,
         height=16)
-    cfg = integrator.IntegratorConfig(max_depth=12, use_pallas=False)
+    cfg = integrator.IntegratorConfig(max_depth=12, traversal="xla")
     img = integrator.render(sc, dbvh, cam, spp=48, sampler="independent",
                             cfg=cfg)
     # compare against the pure env (no sphere in view) brightness
@@ -85,7 +85,7 @@ def test_coated_diffuse_furnace_bounded():
     sc2, dbvh2, _ = accel.build_scene_bvh(sc2)
     env = integrator.render(sc2, dbvh2, cam, spp=8, sampler="independent",
                             cfg=integrator.IntegratorConfig(max_depth=2,
-                                                            use_pallas=False))
+                                                            traversal="xla"))
     ratio = float(np.mean(np.asarray(img))) / float(np.mean(np.asarray(env)))
     assert 0.80 <= ratio <= 1.02, ratio
 
@@ -108,7 +108,7 @@ def test_mix_material_blends():
         cam = camera_mod.make_perspective(
             xf.look_at((0, 3, -3), (0, 0, 0), (0, 1, 0)), fov=40.0,
             width=12, height=12)
-        cfg = integrator.IntegratorConfig(max_depth=2, use_pallas=False)
+        cfg = integrator.IntegratorConfig(max_depth=2, traversal="xla")
         return np.asarray(integrator.render(sc, dbvh, cam, spp=32,
                                             sampler="independent", cfg=cfg))
 

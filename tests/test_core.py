@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nn_bvh_tpu.core import (
+from nn_bvh.core import (
     vecmath as vm,
     sampling,
     samplers,
@@ -273,7 +273,7 @@ class TestGeneratedSamplerTables:
     def test_sobol_matrices_net_property(self):
         import numpy as np
         import jax.numpy as jnp
-        from nn_bvh_tpu.core import lowdiscrepancy as ld
+        from nn_bvh.core import lowdiscrepancy as ld
 
         V = ld.generate_sobol_matrices(16)
         idx = jnp.arange(256, dtype=jnp.uint32)
@@ -286,7 +286,7 @@ class TestGeneratedSamplerTables:
     def test_sobol_dims_0_1_are_02_net(self):
         import numpy as np
         import jax.numpy as jnp
-        from nn_bvh_tpu.core import lowdiscrepancy as ld
+        from nn_bvh.core import lowdiscrepancy as ld
 
         V = ld.generate_sobol_matrices(2)
         idx = jnp.arange(64, dtype=jnp.uint32)
@@ -301,7 +301,7 @@ class TestGeneratedSamplerTables:
                 assert len(cells) == m, (m, a, b)
 
     def test_pmj02_is_02_net(self):
-        from nn_bvh_tpu.core import lowdiscrepancy as ld
+        from nn_bvh.core import lowdiscrepancy as ld
 
         pts = ld.generate_pmj02(64, seed=3)
         for m_log in (2, 4, 6):
@@ -315,7 +315,7 @@ class TestGeneratedSamplerTables:
     def test_pmj02bn_sampler_kind(self):
         import numpy as np
         import jax.numpy as jnp
-        from nn_bvh_tpu.core import samplers
+        from nn_bvh.core import samplers
 
         cfg = samplers.make_sampler("pmj02bn", seed=0, spp=16)
         assert cfg.kind == samplers.PMJ02 and cfg.pmj is not None
@@ -332,7 +332,7 @@ class TestGeneratedSamplerTables:
     def test_fullsobol_sampler_kind(self):
         import numpy as np
         import jax.numpy as jnp
-        from nn_bvh_tpu.core import samplers
+        from nn_bvh.core import samplers
 
         cfg = samplers.make_sampler("fullsobol", seed=0, spp=16)
         pix = jnp.zeros((32,), jnp.int32)

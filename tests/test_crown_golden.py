@@ -1,4 +1,4 @@
-"""Crown north-star gate: our TPU volpath render vs the pbrt-v4 CPU golden.
+"""Crown north-star gate: our volpath render vs the pbrt-v4 CPU golden.
 
 BASELINE.json's north star asks for crown @64spp allclose to the reference
 CPU binary (scenes/crown/crown.pbrt:3-19, reduced to 250x350@64spp for the
@@ -6,13 +6,13 @@ CPU binary (scenes/crown/crown.pbrt:3-19, reduced to 250x350@64spp for the
 
 Two layers:
 1. Artifact parity (always runs): data/golden/crown-ours-volpath-250x350-64spp.exr
-   is the render produced by THIS repo on the TPU chip (tools/crown_gate.py);
+   is the render produced by THIS repo (tools/crown_gate.py);
    CI gates it against the pbrt golden blockwise. A regression that changes
    the committed artifact (or a stale artifact after a renderer change) is
    caught by re-rendering with tools/crown_gate.py before release.
 2. Live render parity (opt-in, NN_BVH_RUN_CROWN=1): parses + renders crown
    in-process at reduced spp and applies the same gate. Hours on CPU —
-   meant for the TPU chip.
+   meant for the GPU.
 """
 
 import os
@@ -20,7 +20,7 @@ import os
 import numpy as np
 import pytest
 
-from nn_bvh_tpu.utils import exr
+from nn_bvh.utils import exr
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "..", "data", "golden")
 PBRT_GOLDEN = os.path.join(GOLDEN, "crown-volpath-250x350-64spp.exr")
@@ -58,7 +58,7 @@ def test_crown_pbrt_golden_reads():
 
 @pytest.mark.skipif(not os.path.exists(OURS),
                     reason="crown-ours artifact not rendered yet "
-                           "(run tools/crown_gate.py on the TPU chip)")
+                           "(run tools/crown_gate.py on the GPU)")
 def test_crown_artifact_structure():
     """Structural parity (round-4 artifact: block median 3.8%, backdrop
     within 5%). Kept alongside the strict gate below as a finer-grained
@@ -83,16 +83,16 @@ def test_crown_artifact_parity():
     CPU golden. PASSING since round 4: the stochastic LayeredBxDF
     (scatter/layered.py) + native-res mip textures (geometry/texture.py)
     closed the r3 +16.7% scene-mean gap to +1.9% (block median 3.8%,
-    p90 11.8%). Artifact rendered by tools/crown_gate.py on TPU v5e-1."""
+    p90 11.8%). Artifact rendered by tools/crown_gate.py."""
     _gate(exr.read_rgb(OURS), exr.read_rgb(PBRT_GOLDEN))
 
 
 @pytest.mark.skipif(os.environ.get("NN_BVH_RUN_CROWN") != "1",
-                    reason="live crown render is TPU-scale work "
+                    reason="live crown render is accelerator-scale work "
                            "(set NN_BVH_RUN_CROWN=1)")
 def test_crown_live_parity():
-    from nn_bvh_tpu.geometry import pbrt_parser
-    from nn_bvh_tpu.wavefront import integrator
+    from nn_bvh.geometry import pbrt_parser
+    from nn_bvh.wavefront import integrator
 
     scene_file = "/tmp/crown_golden/crown_golden.pbrt"
     assert os.path.exists(scene_file), \

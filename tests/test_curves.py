@@ -1,6 +1,6 @@
 """Curve geometry (geometry/curves.py): dicing fidelity, cyHair import,
 parser integration, and a hair-material-on-curves render — the reference's
-Curve shape (shapes.h:1219) + cyhair2pbrt converter, TPU-diced."""
+Curve shape (shapes.h:1219) + cyhair2pbrt converter, diced to ribbons."""
 
 import io
 import os
@@ -9,7 +9,7 @@ import struct
 import numpy as np
 import pytest
 
-from nn_bvh_tpu.geometry import curves
+from nn_bvh.geometry import curves
 
 
 def test_bezier_eval_endpoints():
@@ -95,13 +95,13 @@ Shape "curve" "string type" "flat"
 """
     f = tmp_path / "curve.pbrt"
     f.write_text(scene)
-    from nn_bvh_tpu.geometry import pbrt_parser
-    from nn_bvh_tpu.wavefront import integrator
+    from nn_bvh.geometry import pbrt_parser
+    from nn_bvh.wavefront import integrator
 
     sc, dbvh, cam, res = pbrt_parser.load_scene(str(f))
     assert sc.feat_hair
     assert sc.n_tris >= 16  # diced ribbons + light quad
-    cfg = integrator.IntegratorConfig(max_depth=2, mis=True, use_pallas=False)
+    cfg = integrator.IntegratorConfig(max_depth=2, mis=True, traversal="xla")
     img = np.asarray(integrator.render(sc, dbvh, cam, spp=2,
                                        sampler="independent", cfg=cfg))
     assert np.isfinite(img).all()
@@ -121,7 +121,7 @@ Shape "bilinearmesh"
 """
     f = tmp_path / "blp.pbrt"
     f.write_text(scene)
-    from nn_bvh_tpu.geometry import pbrt_parser
+    from nn_bvh.geometry import pbrt_parser
 
     sc, dbvh, cam, res = pbrt_parser.load_scene(str(f))
     assert sc.n_tris >= 2

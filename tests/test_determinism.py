@@ -1,7 +1,7 @@
 """Determinism gates (SURVEY §5.2): same seed => bit-identical image.
 
 The reference's equivalent discipline is CHECK macros + --debugstart crash
-context; on TPU the analog risk is nondeterministic reduction order. Film
+context; on an accelerator the analog risk is nondeterministic reduction order. Film
 accumulation here is a sequential per-wave vector add / index-ordered
 scatter-add, so renders must be EXACTLY reproducible — this is also what
 makes the multi-host film-band reduction exact (dist/sharding.py).
@@ -12,9 +12,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from nn_bvh_tpu import accel
-from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-from nn_bvh_tpu.wavefront import camera as camera_mod, integrator
+from nn_bvh import accel
+from nn_bvh.geometry import scene as scene_mod, transform as xf
+from nn_bvh.wavefront import camera as camera_mod, integrator
 
 
 def _scene():
@@ -35,7 +35,7 @@ def _scene():
 
 def test_same_seed_bit_identical():
     sc, dbvh, cam = _scene()
-    cfg = integrator.IntegratorConfig(max_depth=3, use_pallas=False)
+    cfg = integrator.IntegratorConfig(max_depth=3, traversal="xla")
     img1 = np.asarray(integrator.render(sc, dbvh, cam, spp=2, seed=7,
                                         sampler="sobol", cfg=cfg))
     img2 = np.asarray(integrator.render(sc, dbvh, cam, spp=2, seed=7,
@@ -53,10 +53,10 @@ def test_sharded_render_matches_single_device():
     (order-independent film accumulation; dist/sharding.py)."""
     if jax.device_count() < 8:
         pytest.skip("needs 8 virtual devices (conftest sets XLA_FLAGS)")
-    from nn_bvh_tpu.dist import sharding as dist_sharding
+    from nn_bvh.dist import sharding as dist_sharding
 
     sc, dbvh, cam = _scene()
-    cfg = integrator.IntegratorConfig(max_depth=3, use_pallas=False)
+    cfg = integrator.IntegratorConfig(max_depth=3, traversal="xla")
     single = np.asarray(integrator.render(sc, dbvh, cam, spp=2, seed=3,
                                           sampler="sobol", cfg=cfg))
     mesh = dist_sharding.make_mesh(8)

@@ -12,11 +12,11 @@ import jax
 import pytest
 import jax.numpy as jnp
 
-from nn_bvh_tpu import accel
-from nn_bvh_tpu.core import samplers
-from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-from nn_bvh_tpu.scatter import lightsamplers
-from nn_bvh_tpu.wavefront import camera as camera_mod, film as film_mod, integrator
+from nn_bvh import accel
+from nn_bvh.core import samplers
+from nn_bvh.geometry import scene as scene_mod, transform as xf
+from nn_bvh.scatter import lightsamplers
+from nn_bvh.wavefront import camera as camera_mod, film as film_mod, integrator
 
 RES = 12
 

@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from nn_bvh_tpu import accel
-from nn_bvh_tpu.core import colorspace, spectrum
-from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-from nn_bvh_tpu.wavefront import (camera as camera_mod, film as film_mod,
+from nn_bvh import accel
+from nn_bvh.core import colorspace, spectrum
+from nn_bvh.geometry import scene as scene_mod, transform as xf
+from nn_bvh.wavefront import (camera as camera_mod, film as film_mod,
                                   filters, integrator)
 
 
@@ -56,7 +56,7 @@ def test_gaussian_filter_render_preserves_mean():
     imgs = {}
     for kind in ["box", "gaussian"]:
         filt = filters.make_filter(kind)
-        cfg = integrator.IntegratorConfig(max_depth=2, use_pallas=False,
+        cfg = integrator.IntegratorConfig(max_depth=2, traversal="xla",
                                           filt=filt)
         imgs[kind] = np.mean(np.asarray(integrator.render(
             sc, dbvh, cam, spp=8, sampler="independent", cfg=cfg)))
@@ -174,9 +174,9 @@ def test_camera_motion_blur_smears():
     sharp (cameras.h shutteropen/close semantics)."""
     import numpy as np
     import jax.numpy as jnp
-    from nn_bvh_tpu import accel
-    from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-    from nn_bvh_tpu.wavefront import camera as camera_mod, integrator
+    from nn_bvh import accel
+    from nn_bvh.geometry import scene as scene_mod, transform as xf
+    from nn_bvh.wavefront import camera as camera_mod, integrator
 
     b = scene_mod.SceneBuilder()
     white = b.add_material("diffuse", reflectance=(0.9, 0.9, 0.9))
@@ -190,7 +190,7 @@ def test_camera_motion_blur_smears():
     m0 = xf.look_at((0, 0, -4), (0, 0, 0), (0, 1, 0))
     m1 = xf.look_at((1.2, 0, -4), (1.2, 0, 0), (0, 1, 0))
     cam = camera_mod.make_perspective(m0, fov=35.0, width=48, height=8)
-    cfg = integrator.IntegratorConfig(max_depth=2, use_pallas=False)
+    cfg = integrator.IntegratorConfig(max_depth=2, traversal="xla")
     sharp = np.asarray(integrator.render(sc, dbvh, cam, spp=8,
                                          sampler="independent", cfg=cfg))
     cam_mb = camera_mod.with_motion(cam, m1)

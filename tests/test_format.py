@@ -13,8 +13,8 @@ import tempfile
 import numpy as np
 import pytest
 
-from nn_bvh_tpu.cli import format as fmt
-from nn_bvh_tpu.geometry import pbrt_parser
+from nn_bvh.cli import format as fmt
+from nn_bvh.geometry import pbrt_parser
 
 KILLEROO = "/root/reference/scenes/killeroos/killeroo-simple-v4.pbrt"
 

@@ -4,8 +4,8 @@
 import numpy as np
 import pytest
 
-from nn_bvh_tpu.geometry import pbrt_parser, ply, loopsubdiv, transform as xf
-from nn_bvh_tpu.utils import image as image_mod
+from nn_bvh.geometry import pbrt_parser, ply, loopsubdiv, transform as xf
+from nn_bvh.utils import image as image_mod
 
 
 class TestTokenizer:
@@ -222,7 +222,7 @@ def test_animated_transform_interpolation():
     slerp reproduces pure rotations exactly at keyframes and rotates rigidly
     (no shear) at midpoints, where direct matrix lerp would shrink."""
     import numpy as np
-    from nn_bvh_tpu.geometry import animated, transform as xf
+    from nn_bvh.geometry import animated, transform as xf
 
     m0 = np.eye(4, dtype=np.float32)
     m1 = np.asarray(xf.rotate(90.0, (0, 0, 1)), np.float32)

@@ -8,8 +8,8 @@ test: scene-average radiance within a small tolerance
 mean is ~2.26 so the gate is relative), plus a blockwise structural check
 so a right-mean-wrong-image render cannot pass.
 
-CI renders at reduced res/spp on CPU (the full 400x400@16spp config runs on
-the TPU chip; see BASELINE.md measured table).
+CI renders at reduced res/spp on CPU (the full 400x400@16spp config is for
+the GPU).
 """
 
 import os
@@ -17,7 +17,7 @@ import os
 import numpy as np
 import pytest
 
-from nn_bvh_tpu.utils import exr
+from nn_bvh.utils import exr
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "..", "data", "golden")
 KILLEROO = "/root/reference/scenes/killeroos/killeroo-simple-v4.pbrt"
@@ -45,15 +45,15 @@ def test_golden_exr_reads(golden16):
 def test_killeroo_simplepath_mean_parity(golden16):
     """Render killeroo-simple (reduced res/spp) and gate the scene mean and
     blockwise structure against the pbrt-v4 CPU golden."""
-    from nn_bvh_tpu import accel
-    from nn_bvh_tpu.geometry import pbrt_parser
-    from nn_bvh_tpu.wavefront import integrator
+    from nn_bvh import accel
+    from nn_bvh.geometry import pbrt_parser
+    from nn_bvh.wavefront import integrator
 
     res, spp = 100, 4
     sc, dbvh, cam, _ = pbrt_parser.load_scene(KILLEROO)
     cam = cam._replace(width=res, height=res)
     cfg = integrator.IntegratorConfig(max_depth=5, mis=False,
-                                      use_pallas=False)
+                                      traversal="xla")
     img = np.asarray(integrator.render(sc, dbvh, cam, spp=spp,
                                        sampler="halton", cfg=cfg))
 

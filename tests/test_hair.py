@@ -10,8 +10,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nn_bvh_tpu.scatter import hair
-from nn_bvh_tpu.core import sampling
+from nn_bvh.scatter import hair
+from nn_bvh.core import sampling
 
 N = 1 << 16
 
@@ -91,8 +91,8 @@ def test_absorption_darkens():
 
 def test_material_dispatch():
     """A hair material flows through gather/evaluate/sample lane dispatch."""
-    from nn_bvh_tpu.geometry import scene as scene_mod
-    from nn_bvh_tpu.scatter import bxdf
+    from nn_bvh.geometry import scene as scene_mod
+    from nn_bvh.scatter import bxdf
 
     b = scene_mod.SceneBuilder()
     hm = b.add_material("hair", reflectance=(0.4, 0.25, 0.1),

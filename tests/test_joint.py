@@ -8,12 +8,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nn_bvh_tpu import accel
-from nn_bvh_tpu.core import samplers
-from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-from nn_bvh_tpu.learn import joint, treenet
-from nn_bvh_tpu.scatter import lightsamplers
-from nn_bvh_tpu.wavefront import camera as camera_mod, integrator
+from nn_bvh import accel
+from nn_bvh.core import samplers
+from nn_bvh.geometry import scene as scene_mod, transform as xf
+from nn_bvh.learn import joint, treenet
+from nn_bvh.scatter import lightsamplers
+from nn_bvh.wavefront import camera as camera_mod, integrator
 
 
 @pytest.fixture(scope="module")
@@ -44,7 +44,7 @@ def test_joint_step_grads_both_branches(tiny):
     lst = lightsamplers.build(sc2, "power")
 
     sampler_cfg = samplers.make_sampler("independent", seed=0, spp=2)
-    cfg = integrator.IntegratorConfig(max_depth=1, mis=True, use_pallas=False)
+    cfg = integrator.IntegratorConfig(max_depth=1, mis=True, traversal="xla")
     state = joint.JointState(tree_params=params,
                              mat_coeffs=jnp.asarray(sc2.mat_coeffs))
     clouds = jnp.asarray(joint.scene_cloud(sc2, tree_cfg.pc_size, batch=2))
@@ -80,7 +80,7 @@ def test_rebuild_through_predicted_tree_renders(tiny):
     params = treenet.init_params(tree_cfg, jax.random.PRNGKey(1))
     sc2, dbvh2, _ = joint.rebuild_scene_with_predicted_tree(
         sc, params, tree_cfg, pc_size=tree_cfg.pc_size)
-    cfg = integrator.IntegratorConfig(max_depth=2, mis=True, use_pallas=False)
+    cfg = integrator.IntegratorConfig(max_depth=2, mis=True, traversal="xla")
     img_a = np.asarray(integrator.render(sc, dbvh, cam, spp=2,
                                          sampler="independent", cfg=cfg))
     img_b = np.asarray(integrator.render(sc2, dbvh2, cam, spp=2,

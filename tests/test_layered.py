@@ -9,9 +9,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from nn_bvh_tpu.core import vecmath as vm
-from nn_bvh_tpu.geometry import scene as sm
-from nn_bvh_tpu.scatter import bxdf, layered
+from nn_bvh.core import vecmath as vm
+from nn_bvh.geometry import scene as sm
+from nn_bvh.scatter import bxdf, layered
 
 
 def _ctx(n, mat=sm.MAT_COATED_DIFFUSE, refl=0.6, ax=0.0, eta=1.5, k=0.0,

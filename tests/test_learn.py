@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nn_bvh_tpu.learn import (
+from nn_bvh.learn import (
     common,
     data,
     encoder,
@@ -280,10 +280,10 @@ class TestNeuralBVHRendering:
 
     def test_predicted_tree_renders_identically(self):
         import jax.numpy as jnp
-        from nn_bvh_tpu import accel
-        from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-        from nn_bvh_tpu.learn import export as tree_export
-        from nn_bvh_tpu.wavefront import camera as camera_mod, integrator
+        from nn_bvh import accel
+        from nn_bvh.geometry import scene as scene_mod, transform as xf
+        from nn_bvh.learn import export as tree_export
+        from nn_bvh.wavefront import camera as camera_mod, integrator
 
         # scene: random blob field + floor + light
         scene = data.random_scene(n_meshes=3, prims_per_mesh=60, seed=21)

@@ -5,8 +5,8 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-from nn_bvh_tpu.learn import data, kd_tree, callbacks, trainer, treenet
-from nn_bvh_tpu.utils import noise
+from nn_bvh.learn import data, kd_tree, callbacks, trainer, treenet
+from nn_bvh.utils import noise
 
 
 def _prims(n=64, seed=0):
@@ -82,7 +82,7 @@ def test_perlin_noise_properties():
 
 
 def test_procedural_texture_bake():
-    from nn_bvh_tpu.geometry import scene as scene_mod
+    from nn_bvh.geometry import scene as scene_mod
 
     b = scene_mod.SceneBuilder()
     for kind in ("fbm", "wrinkled", "windy", "marble", "dots"):
@@ -96,7 +96,7 @@ def test_procedural_texture_bake():
 def test_pointcloud_stream_csv(tmp_path):
     """nss CSV point-cloud stream (nss_data_stream.py:18 counterpart)."""
     import numpy as np
-    from nn_bvh_tpu.learn.data import PointCloudStream
+    from nn_bvh.learn.data import PointCloudStream
 
     root = tmp_path / "pcs"
     root.mkdir()

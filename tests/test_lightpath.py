@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from nn_bvh_tpu import accel
-from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-from nn_bvh_tpu.wavefront import camera as camera_mod, integrator, lightpath
+from nn_bvh import accel
+from nn_bvh.geometry import scene as scene_mod, transform as xf
+from nn_bvh.wavefront import camera as camera_mod, integrator, lightpath
 
 
 def _box_scene():
@@ -35,7 +35,7 @@ def test_lightpath_matches_path():
     statistical tolerance) — the strongest check of the camera importance
     We/SampleWi radiometry."""
     sc, dbvh, cam = _box_scene()
-    cfg = integrator.IntegratorConfig(max_depth=4, use_pallas=False)
+    cfg = integrator.IntegratorConfig(max_depth=4, traversal="xla")
     fwd = integrator.render(sc, dbvh, cam, spp=64, sampler="independent",
                             seed=1, cfg=cfg)
     # light tracing never sees emitters directly through the camera; compare
@@ -43,7 +43,7 @@ def test_lightpath_matches_path():
     # by keeping the light out of view (it is: camera looks away from ceiling)
     bwd = lightpath.render_lightpath(sc, dbvh, cam, spp=96, seed=2,
                                      cfg=integrator.IntegratorConfig(
-                                         max_depth=4, use_pallas=False),
+                                         max_depth=4, traversal="xla"),
                                      paths_per_wave=cam.width * cam.height * 4)
     a = float(np.mean(np.asarray(fwd)))
     c = float(np.mean(np.asarray(bwd)))

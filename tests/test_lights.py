@@ -3,10 +3,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from nn_bvh_tpu import accel
-from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-from nn_bvh_tpu.scatter import lights, lightsamplers
-from nn_bvh_tpu.wavefront import camera as camera_mod, integrator
+from nn_bvh import accel
+from nn_bvh.geometry import scene as scene_mod, transform as xf
+from nn_bvh.scatter import lights, lightsamplers
+from nn_bvh.wavefront import camera as camera_mod, integrator
 
 
 def _li_at(sc, light_id, p, u=(0.3, 0.7)):
@@ -164,7 +164,7 @@ def test_bvh_sampler_render_matches_power():
     imgs = {}
     for ls in ("power", "bvh"):
         cfg = integrator.IntegratorConfig(max_depth=3, light_sampler=ls,
-                                          use_pallas=False)
+                                          traversal="xla")
         imgs[ls] = float(np.mean(np.asarray(integrator.render(
             sc, dbvh, cam, spp=24, sampler="independent", cfg=cfg))))
     assert abs(imgs["bvh"] / imgs["power"] - 1.0) < 0.05, imgs
@@ -234,7 +234,7 @@ def test_sphere_light_render_vs_tri_lights():
         cam = camera_mod.make_perspective(
             xf.look_at((0, 4, -12), (0, 1, 0), (0, 1, 0)), fov=45.0,
             width=24, height=24)
-        cfg = integrator.IntegratorConfig(max_depth=2, use_pallas=False)
+        cfg = integrator.IntegratorConfig(max_depth=2, traversal="xla")
         return np.asarray(integrator.render(sc, dbvh, cam, spp=48,
                                             sampler="halton", cfg=cfg))
 
@@ -252,7 +252,7 @@ def test_portal_sat_variance_below_uniform():
     # env with a small bright spot INSIDE the portal window (placed at the
     # equal-area uv of the portal-center direction): uniform-area sampling
     # rarely lands on it
-    from nn_bvh_tpu.core import vecmath as vmx
+    from nn_bvh.core import vecmath as vmx
     env = np.full((64, 64, 3), 0.01, np.float32)
     uv_c = np.asarray(vmx.equal_area_sphere_to_square(
         jnp.asarray([[0.05, 0.05, 1.0]]) / np.linalg.norm([0.05, 0.05, 1.0])))[0]

@@ -8,8 +8,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from nn_bvh_tpu.scatter import measured
-from nn_bvh_tpu.core import sampling
+from nn_bvh.scatter import measured
+from nn_bvh.core import sampling
 
 
 def _lambertian(albedo=0.6):
@@ -37,8 +37,8 @@ def test_tabulate_roundtrip_lambertian():
 def test_tabulated_ggx_matches_analytic():
     """Tabulate our own rough-conductor evaluate() and compare the table
     lookup against the analytic value at random direction pairs."""
-    from nn_bvh_tpu.scatter import bxdf
-    from nn_bvh_tpu.geometry import scene as scene_mod
+    from nn_bvh.scatter import bxdf
+    from nn_bvh.geometry import scene as scene_mod
 
     alpha_rough = 0.4
 
@@ -91,9 +91,9 @@ def test_sampling_consistency():
 def test_render_dispatch_matches_diffuse():
     """End to end: a scene whose floor uses a tabulated Lambertian renders
     the same as the analytic diffuse floor (integrator + dispatch path)."""
-    from nn_bvh_tpu import accel
-    from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-    from nn_bvh_tpu.wavefront import camera as camera_mod, integrator
+    from nn_bvh import accel
+    from nn_bvh.geometry import scene as scene_mod, transform as xf
+    from nn_bvh.wavefront import camera as camera_mod, integrator
 
     def build(use_measured):
         b = scene_mod.SceneBuilder()

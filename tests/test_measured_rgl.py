@@ -12,8 +12,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from nn_bvh_tpu.core import vecmath as vm
-from nn_bvh_tpu.scatter import measured
+from nn_bvh.core import vecmath as vm
+from nn_bvh.scatter import measured
 
 
 def _synthetic_fields(H=32, W=32, T=8, L=4, vndf_mode="uniform"):
@@ -123,7 +123,7 @@ def test_bsdf_resample_linear_warp_inversion():
 def test_proxy_sampler_chi_squared():
     """sample_f histogram must match pdf() (the reference's
     bsdfs_test.cpp chi-squared idiom) for the GGX-proxy mixture."""
-    from nn_bvh_tpu.scatter import bxdf as bx
+    from nn_bvh.scatter import bxdf as bx
 
     # a glossy table from the analytic tabulate path
     def ggx_rgb(wo, wi):

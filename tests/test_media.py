@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nn_bvh_tpu import accel
-from nn_bvh_tpu.core import samplers
-from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-from nn_bvh_tpu.scatter import media
-from nn_bvh_tpu.wavefront import camera as camera_mod, integrator
+from nn_bvh import accel
+from nn_bvh.core import samplers
+from nn_bvh.geometry import scene as scene_mod, transform as xf
+from nn_bvh.scatter import media
+from nn_bvh.wavefront import camera as camera_mod, integrator
 
 
 # ---------------------------------------------------------------------------
@@ -121,7 +121,7 @@ def _mean_render(sc, dbvh, cam, spp=32, max_depth=5, kind="volpath"):
     img = integrator.render(
         sc, dbvh, cam, spp=spp, sampler="independent", seed=3,
         cfg=integrator.IntegratorConfig(kind=kind, max_depth=max_depth,
-                                        use_pallas=False))
+                                        traversal="xla", compact=False))
     return float(np.mean(np.asarray(img)))
 
 
@@ -216,7 +216,7 @@ def test_parser_named_medium_interface(tmp_path):
     (reference scene.cpp:909 CreateMedia + graphics-state MediumInterface);
     crown.pbrt's homogeneous ruby/sapphire media follow this path."""
     import numpy as np
-    from nn_bvh_tpu.geometry import pbrt_parser, scene as scene_mod
+    from nn_bvh.geometry import pbrt_parser, scene as scene_mod
 
     f = tmp_path / "med.pbrt"
     f.write_text("""
@@ -263,8 +263,8 @@ def test_dda_majorant_sparse_grid_unbiased():
     numerically integrated exp(-int sigma) — the per-supervoxel majorants
     (DDAMajorantIterator, media.h:135) must not bias the estimator, only
     cut null collisions vs the global-majorant bound."""
-    from nn_bvh_tpu.geometry import scene as sm
-    from nn_bvh_tpu.scatter import media as media_mod
+    from nn_bvh.geometry import scene as sm
+    from nn_bvh.scatter import media as media_mod
     import jax
     import jax.numpy as jnp
 
@@ -352,8 +352,8 @@ def test_blackbody_temperature_emission():
     temperature emission; spectrum.h BlackbodySpectrum)."""
     import numpy as np
     import jax.numpy as jnp
-    from nn_bvh_tpu.geometry import scene as scene_mod
-    from nn_bvh_tpu.scatter import media
+    from nn_bvh.geometry import scene as scene_mod
+    from nn_bvh.scatter import media
 
     def ctx_at(T_kelvin):
         b = scene_mod.SceneBuilder()

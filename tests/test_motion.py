@@ -3,7 +3,7 @@ per-wave shutter-time lerp (AnimatedPrimitive analog, cpu/primitive.h:33 /
 util/transform.h:444 AnimatedTransform; parser.h ActiveTransform /
 TransformTimes directives).
 
-Design under test (TPU-first): each 1-spp wave renders at ONE stratified
+Design under test: each 1-spp wave renders at ONE stratified
 shutter time; geometry lerps between shutter keyframes per wave (tables and
 vertex records are linear in positions), and the BVH is built once over the
 union of both keyframes' bounds, so the traversal kernels never see a
@@ -16,11 +16,11 @@ import tempfile
 import numpy as np
 import jax.numpy as jnp
 
-from nn_bvh_tpu import accel
-from nn_bvh_tpu.core import rng, samplers
-from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf, \
+from nn_bvh import accel
+from nn_bvh.core import rng, samplers
+from nn_bvh.geometry import scene as scene_mod, transform as xf, \
     pbrt_parser
-from nn_bvh_tpu.wavefront import integrator, camera as camera_mod, \
+from nn_bvh.wavefront import integrator, camera as camera_mod, \
     film as film_mod
 
 

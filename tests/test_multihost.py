@@ -26,15 +26,15 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=2").strip()
 import jax
 jax.config.update("jax_platforms", "cpu")
-from nn_bvh_tpu.dist import multihost
+from nn_bvh.dist import multihost
 multihost.initialize(coord, nproc, proc)
 assert jax.device_count() == 2 * nproc, jax.devices()
 assert jax.process_index() == proc
 
-from nn_bvh_tpu import accel
-from nn_bvh_tpu.dist import sharding
-from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-from nn_bvh_tpu.wavefront import camera as camera_mod, integrator
+from nn_bvh import accel
+from nn_bvh.dist import sharding
+from nn_bvh.geometry import scene as scene_mod, transform as xf
+from nn_bvh.wavefront import camera as camera_mod, integrator
 
 b = scene_mod.SceneBuilder()
 m = b.add_material("diffuse", reflectance=(0.6, 0.4, 0.3))
@@ -49,7 +49,7 @@ cam = camera_mod.make_perspective(
     width=8, height=8)
 
 mesh = sharding.make_mesh()
-cfg = integrator.IntegratorConfig(max_depth=1, mis=True, use_pallas=False)
+cfg = integrator.IntegratorConfig(max_depth=1, mis=True, traversal="xla")
 img = sharding.render_sharded(sc, dbvh, cam, mesh, spp=2,
                               sampler="independent", cfg=cfg)
 if proc == 0:
@@ -87,10 +87,10 @@ def test_two_process_render_matches_single(tmp_path):
     multi = np.load(tmp_path / "multi.npy")
 
     # single-process reference render (same deterministic sampler)
-    from nn_bvh_tpu import accel
-    from nn_bvh_tpu.dist import sharding
-    from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-    from nn_bvh_tpu.wavefront import camera as camera_mod, integrator
+    from nn_bvh import accel
+    from nn_bvh.dist import sharding
+    from nn_bvh.geometry import scene as scene_mod, transform as xf
+    from nn_bvh.wavefront import camera as camera_mod, integrator
 
     b = scene_mod.SceneBuilder()
     m = b.add_material("diffuse", reflectance=(0.6, 0.4, 0.3))
@@ -103,7 +103,7 @@ def test_two_process_render_matches_single(tmp_path):
     cam = camera_mod.make_perspective(
         xf.look_at((0, 1.5, -4), (0, 0.5, 0), (0, 1, 0)), fov=45.0,
         width=8, height=8)
-    cfg = integrator.IntegratorConfig(max_depth=1, mis=True, use_pallas=False)
+    cfg = integrator.IntegratorConfig(max_depth=1, mis=True, traversal="xla")
     mesh = sharding.make_mesh(1)
     single = np.asarray(sharding.render_sharded(
         sc, dbvh, cam, mesh, spp=2, sampler="independent", cfg=cfg))

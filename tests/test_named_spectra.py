@@ -8,9 +8,9 @@ crown scene's `"spectrum eta" ["metal-Au-eta"]` usage.
 import numpy as np
 import jax.numpy as jnp
 
-from nn_bvh_tpu.core import named_spectra, spectrum as spec_mod
-from nn_bvh_tpu.geometry import scene as scene_mod
-from nn_bvh_tpu.scatter import bxdf
+from nn_bvh.core import named_spectra, spectrum as spec_mod
+from nn_bvh.geometry import scene as scene_mod
+from nn_bvh.scatter import bxdf
 
 
 def test_named_spectra_inventory():
@@ -75,7 +75,7 @@ def test_parser_named_spectrum_conductor(tmp_path):
     """crown.pbrt-style `"spectrum eta" ["metal-Au-eta"]` parses into a
     spectral conductor; an unparameterized conductor defaults to copper
     (materials.cpp ConductorMaterial::Create)."""
-    from nn_bvh_tpu.geometry import pbrt_parser
+    from nn_bvh.geometry import pbrt_parser
 
     scene = tmp_path / "gold.pbrt"
     scene.write_text("""

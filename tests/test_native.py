@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nn_bvh_tpu import accel, native
-from nn_bvh_tpu.accel import build as build_mod
-from nn_bvh_tpu.accel.traverse import DeviceBVH
+from nn_bvh import accel, native
+from nn_bvh.accel import build as build_mod
+from nn_bvh.accel.traverse import DeviceBVH
 
 
 def _random_prims(n, seed=0):
@@ -75,7 +75,7 @@ def test_native_bvh_traversal_correct():
 
 @pytest.mark.skipif(not native.available(), reason="no native toolchain")
 def test_scene_build_uses_native():
-    from nn_bvh_tpu.geometry import scene as scene_mod
+    from nn_bvh.geometry import scene as scene_mod
 
     b = scene_mod.SceneBuilder()
     m = b.add_material("diffuse")

@@ -7,8 +7,8 @@ must match the plain single-jit trace bit-for-bit-ish (only summation
 order inside film scatter differs; pixels are unique per wave so even that
 is exact).
 
-Marked slow: each volpath variant is a multi-minute XLA compile on the
-2-core CI box.
+Marked slow: each volpath variant is a multi-minute XLA compile on a
+small CPU box.
 """
 
 import numpy as np
@@ -16,11 +16,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from nn_bvh_tpu import accel
-from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-from nn_bvh_tpu.wavefront import integrator, volpath, camera as camera_mod, \
+from nn_bvh import accel
+from nn_bvh.geometry import scene as scene_mod, transform as xf
+from nn_bvh.wavefront import integrator, volpath, camera as camera_mod, \
     film as film_mod
-from nn_bvh_tpu.core import samplers
+from nn_bvh.core import samplers
 
 
 pytestmark = pytest.mark.slow
@@ -46,7 +46,8 @@ def test_phased_wave_matches_plain_volpath():
     cfg = integrator.IntegratorConfig(max_depth=6, kind="volpath", rr_depth=2)
     scfg = samplers.make_sampler("sobol", seed=0, spp=2)
 
-    img_plain = integrator.render(sc, dbvh, cam, spp=2, cfg=cfg)
+    img_plain = integrator.render(sc, dbvh, cam, spp=2,
+                                  cfg=cfg._replace(compact=False))
 
     wave = volpath.make_phased_wave(sc, dbvh, cam, scfg, cfg, phase_len=2)
     film = film_mod.make_film(cam.height, cam.width)

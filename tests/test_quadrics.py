@@ -8,10 +8,10 @@ scene/dispatch integration without the binary."""
 import numpy as np
 import jax.numpy as jnp
 
-from nn_bvh_tpu import accel
-from nn_bvh_tpu.accel import dispatch
-from nn_bvh_tpu.geometry import quadrics, scene as scene_mod, transform as xf
-from nn_bvh_tpu.wavefront import camera as camera_mod, integrator
+from nn_bvh import accel
+from nn_bvh.accel import dispatch
+from nn_bvh.geometry import quadrics, scene as scene_mod, transform as xf
+from nn_bvh.wavefront import camera as camera_mod, integrator
 
 
 def _tables(recs):
@@ -90,13 +90,13 @@ def test_render_analytic_sphere_no_sag():
     cam = camera_mod.make_perspective(
         xf.look_at((0, 1.0, -5), (0, 1.0, 0), (0, 1, 0)), fov=30.0,
         width=64, height=64)
-    cfg = integrator.IntegratorConfig(max_depth=3, use_pallas=False)
+    cfg = integrator.IntegratorConfig(max_depth=3, traversal="xla")
     img = np.asarray(integrator.render(sc, dbvh, cam, spp=8,
                                        sampler="independent", cfg=cfg))
     assert np.isfinite(img).all() and img.mean() > 0.05
     # exact silhouette: rays through the center plane at angle theta hit the
     # sphere iff sin(theta) <= r/d (analytic, no tessellation chords)
-    isect = dispatch.make_intersectors(sc, dbvh, use_pallas=False)
+    isect = dispatch.make_intersectors(sc, dbvh, traversal="xla")
     thetas = np.linspace(-0.35, 0.35, 201)
     d_rays = np.stack([np.sin(thetas), np.zeros_like(thetas),
                        np.cos(thetas)], -1).astype(np.float32)
@@ -120,7 +120,7 @@ def test_quadric_dispatch_any_hit_occludes():
     b.add_quad((-3, 0, -3), (3, 0, -3), (3, 0, 3), (-3, 0, 3), m)
     sc = b.build()
     sc, dbvh, _ = accel.build_scene_bvh(sc)
-    isect = dispatch.make_intersectors(sc, dbvh, use_pallas=False)
+    isect = dispatch.make_intersectors(sc, dbvh, traversal="xla")
     o = jnp.asarray([[0.0, 0.01, 0.0], [2.5, 0.01, 0.0]])
     d = jnp.broadcast_to(jnp.asarray([0.0, 1.0, 0.0]), (2, 3))
     occ = isect.any_hit(o, d, jnp.full((2,), 10.0))

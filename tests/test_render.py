@@ -10,9 +10,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from nn_bvh_tpu import accel
-from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-from nn_bvh_tpu.wavefront import camera as camera_mod, integrator
+from nn_bvh import accel
+from nn_bvh.geometry import scene as scene_mod, transform as xf
+from nn_bvh.wavefront import camera as camera_mod, integrator
 
 RES = 24
 TOL = 0.025
@@ -141,7 +141,7 @@ class TestEnvMapAndTextures:
 
     def test_env_sample_pdf_consistency(self):
         import jax
-        from nn_bvh_tpu.scatter import lights
+        from nn_bvh.scatter import lights
 
         b = scene_mod.SceneBuilder()
         m = b.add_material("diffuse")
@@ -196,9 +196,9 @@ def test_mipmap_minification_no_alias():
     ray-cone LOD (geometry/texture.py, util/mipmap.h analog) the far region
     must converge to the checker mean instead of aliasing to one tone."""
     import numpy as np
-    from nn_bvh_tpu import accel
-    from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-    from nn_bvh_tpu.wavefront import camera as camera_mod, integrator
+    from nn_bvh import accel
+    from nn_bvh.geometry import scene as scene_mod, transform as xf
+    from nn_bvh.wavefront import camera as camera_mod, integrator
 
     b = scene_mod.SceneBuilder()
     tex = b.add_texture_checker((0.1, 0.1, 0.1), (0.9, 0.9, 0.9), uscale=64)
@@ -213,7 +213,7 @@ def test_mipmap_minification_no_alias():
     cam = camera_mod.make_perspective(
         xf.look_at((0, 1.0, 0), (0, 0.85, 4), (0, 1, 0)), fov=40.0,
         width=48, height=48)
-    cfg = integrator.IntegratorConfig(max_depth=2, use_pallas=False)
+    cfg = integrator.IntegratorConfig(max_depth=2, traversal="xla")
     img = np.asarray(integrator.render(sc, dbvh, cam, spp=8,
                                        sampler="independent", cfg=cfg))
     # far band (top third of the plane, just below the horizon): each pixel
@@ -232,9 +232,9 @@ def test_pixel_stats_counters():
     """collect_stats returns per-lane [bounces, shadow, hits, rr] counters
     (STAT_PIXEL_COUNTER analog) consistent with the render."""
     import numpy as np
-    from nn_bvh_tpu import accel
-    from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-    from nn_bvh_tpu.wavefront import camera as camera_mod, integrator
+    from nn_bvh import accel
+    from nn_bvh.geometry import scene as scene_mod, transform as xf
+    from nn_bvh.wavefront import camera as camera_mod, integrator
 
     b = scene_mod.SceneBuilder()
     m = b.add_material("diffuse")
@@ -245,7 +245,7 @@ def test_pixel_stats_counters():
     cam = camera_mod.make_perspective(
         xf.look_at((0, 3, -4), (0, 0, 0), (0, 1, 0)), fov=50.0,
         width=16, height=16)
-    cfg = integrator.IntegratorConfig(max_depth=3, use_pallas=False)
+    cfg = integrator.IntegratorConfig(max_depth=3, traversal="xla")
     imgs, totals = integrator.render_pixel_stats(sc, dbvh, cam, spp=2,
                                                  sampler="independent",
                                                  cfg=cfg)

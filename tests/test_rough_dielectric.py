@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from nn_bvh_tpu.core import vecmath as vm
-from nn_bvh_tpu.geometry import scene as scene_mod
-from nn_bvh_tpu.scatter import bxdf
+from nn_bvh.core import vecmath as vm
+from nn_bvh.geometry import scene as scene_mod
+from nn_bvh.scatter import bxdf
 
 
 def _ctx(n, roughness=0.1, eta=1.5):

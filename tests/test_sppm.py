@@ -7,9 +7,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from nn_bvh_tpu import accel
-from nn_bvh_tpu.geometry import scene as scene_mod, transform as xf
-from nn_bvh_tpu.wavefront import camera as camera_mod, integrator, sppm
+from nn_bvh import accel
+from nn_bvh.geometry import scene as scene_mod, transform as xf
+from nn_bvh.wavefront import camera as camera_mod, integrator, sppm
 
 RES = 16
 TOL = 0.025
@@ -62,7 +62,7 @@ def test_sppm_radius_shrinks_and_stats():
     dropped-photon counter reports cap overflow instead of hiding it."""
     sc, dbvh, cam = quad_light_scene()
     cfg = integrator.IntegratorConfig(max_depth=2, mis=True, rr_depth=99)
-    from nn_bvh_tpu.scatter import lightsamplers
+    from nn_bvh.scatter import lightsamplers
     ls = lightsamplers.build(sc, cfg.light_sampler)
     st0 = sppm.make_state(RES * RES, 0.5)
     # explicit photon depth: this open scene needs two bounces for photons to

@@ -7,9 +7,9 @@ import sys
 import numpy as np
 import jax.numpy as jnp
 
-from nn_bvh_tpu.utils import image as im, stats
-from nn_bvh_tpu.learn import export as tree_export, data as learn_data, tree_eval
-from nn_bvh_tpu.cli import imgtool
+from nn_bvh.utils import image as im, stats
+from nn_bvh.learn import export as tree_export, data as learn_data, tree_eval
+from nn_bvh.cli import imgtool
 
 
 class TestImgtool:
@@ -72,7 +72,7 @@ class TestTreeExport:
 
     def test_export_variables(self, tmp_path):
         import jax
-        from nn_bvh_tpu.learn import treenet
+        from nn_bvh.learn import treenet
 
         cfg = treenet.TreeNetConfig(levels=2, capacity=8, pc_size=16)
         params = treenet.init_params(cfg, jax.random.PRNGKey(0))
@@ -98,8 +98,8 @@ def test_imgtool_extended_subcommands(tmp_path):
     """makeequiarea / makesky / assemble / splitn / bloom / despike /
     whitebalance round-trips (cmd/imgtool.cpp analogs)."""
     import numpy as np
-    from nn_bvh_tpu.cli import imgtool
-    from nn_bvh_tpu.utils import image as im
+    from nn_bvh.cli import imgtool
+    from nn_bvh.utils import image as im
 
     d = str(tmp_path)
     # equirect source with a bright band at the horizon
@@ -151,8 +151,8 @@ def test_imgtool_round2_subcommands(tmp_path, capsys):
     """cat / makeemitters / denoise / convert --downsample/--gamma/
     --colorspace (cmd/imgtool.cpp analogs added in round 2)."""
     import numpy as np
-    from nn_bvh_tpu.cli import imgtool
-    from nn_bvh_tpu.utils import image as im
+    from nn_bvh.cli import imgtool
+    from nn_bvh.utils import image as im
 
     d = str(tmp_path)
     rs = np.random.RandomState(1)
@@ -199,7 +199,7 @@ def test_pspec_power_spectrum():
     """pspec (cmd/pspec.cpp analog): white noise has a flat unit spectrum;
     low-discrepancy samplers suppress the low-frequency disk."""
     import numpy as np
-    from nn_bvh_tpu.cli import pspec
+    from nn_bvh.cli import pspec
 
     def run(kind):
         sets = np.stack([pspec.sample_points(kind, 128, s, 1)

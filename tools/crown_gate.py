@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Render the crown north-star artifact on the TPU chip and gate it.
+"""Render the crown north-star artifact on the GPU and gate it.
 
 1. Stages /tmp/crown_golden (PFM textures; tools/refbuild/crown_golden.py)
 2. Renders 250x350@64spp volpath (same config as the pbrt-v4 CPU golden)
@@ -40,13 +40,15 @@ def main():
             subprocess.check_call(
                 [sys.executable, os.path.join(REPO, "tools", "refbuild",
                                               "crown_golden.py")])
+        # the render runs in a child; this parent never imports JAX, so the
+        # child is the only process on the card
         subprocess.check_call(
-            [sys.executable, "-m", "nn_bvh_tpu.cli.render",
+            [sys.executable, "-m", "nn_bvh.cli.render",
              "/tmp/crown_golden/crown_golden.pbrt",
              "--spp", str(args.spp), "--outfile", OURS_TMP, "--stats"],
             cwd=REPO)
 
-    from nn_bvh_tpu.utils import exr
+    from nn_bvh.utils import exr
     from tests.test_crown_golden import _downsample
 
     ours = exr.read_rgb(OURS_TMP)

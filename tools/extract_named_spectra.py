@@ -10,7 +10,7 @@ the numeric tables out of that file and stores them as
 "stdillum-D65", "glass-BK7", ...). Each entry is an (N, 2) float32 array of
 (wavelength_nm, value) pairs, raw (un-normalized) — normalization for
 illuminants (luminance = 1, spectrum.cpp:158-160) is applied at load time by
-nn_bvh_tpu.core.named_spectra so it uses OUR CIE-Y fit consistently.
+nn_bvh.core.named_spectra so it uses OUR CIE-Y fit consistently.
 
 The extracted values are physical measurement data, not code.
 

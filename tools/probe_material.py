@@ -98,7 +98,7 @@ def main():
                                 ((raw + 0.055) / 1.055) ** 2.4)
                 sys.path.insert(0, os.path.dirname(
                     os.path.dirname(os.path.abspath(__file__))))
-                from nn_bvh_tpu.utils import image as _image_mod
+                from nn_bvh.utils import image as _image_mod
 
                 texfile = os.path.join(tmp, "tex.pfm")
                 _image_mod.write_pfm(texfile, lin.astype(_np.float32))
@@ -117,9 +117,9 @@ def main():
 
     # ours: parse the same scene through the repo pipeline
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from nn_bvh_tpu.geometry import pbrt_parser
-    from nn_bvh_tpu.wavefront import integrator as integ
-    from nn_bvh_tpu.utils import exr as exr_mod
+    from nn_bvh.geometry import pbrt_parser
+    from nn_bvh.wavefront import integrator as integ
+    from nn_bvh.utils import exr as exr_mod
 
     scene, dbvh, cam, res = pbrt_parser.load_scene(scene_path)
     cfg = integ.IntegratorConfig(max_depth=args.maxdepth)

@@ -70,14 +70,15 @@ def main():
     # reference
     subprocess.check_call(["/tmp/refbuild/pbrt", "--nthreads", "2",
                            "motion.pbrt"], cwd=work)
-    # ours
+    # ours: rendered by a child; this parent never imports JAX, so the child
+    # is the only process on the card
     ours_file = os.path.join(work, "motion_ours.exr")
     subprocess.check_call(
-        [sys.executable, "-m", "nn_bvh_tpu.cli.render", scene_file,
+        [sys.executable, "-m", "nn_bvh.cli.render", scene_file,
          "--spp", str(args.spp), "--outfile", ours_file],
         cwd=os.path.join(os.path.dirname(__file__), ".."))
 
-    from nn_bvh_tpu.utils import exr
+    from nn_bvh.utils import exr
 
     ref = exr.read_rgb(os.path.join(work, "motion.exr"))
     ours = exr.read_rgb(ours_file)
